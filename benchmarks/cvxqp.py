@@ -23,14 +23,13 @@ an 8-significant-digit match cannot arise from a wrong matrix):
     the repository's published 1.1590718e4  (8 digits).
   * CVXQP1_M / CVXQP2_S / CVXQP3_S: independently minimized with
     scipy trust-constr and compared against the published values
-    below (see benchmarks/ab_results/suite artifacts for the solved
-    rows with residuals).
+    below.
 
 The members are materialized as QPS text and solved THROUGH the QPS
 reader (`cuclarabel_tpu/qps.py`) so the whole MM pipeline is
 exercised: QPS parse -> to_clarabel -> dense or sparse solver
-(BASELINE.md's operative MM-suite target; reference pipeline
-`/root/reference/src/problemdata.jl` + QPS via MathOptInterface).
+(reference pipeline `src/problemdata.jl` + QPS via
+MathOptInterface).
 """
 
 from typing import Tuple
@@ -120,16 +119,13 @@ def run(members=("CVXQP1_S", "CVXQP2_S", "CVXQP3_S", "CVXQP1_M"),
                     rec = solve_qps_text(f.read(), name=name,
                                          settings=settings)
         except Exception as e:  # noqa: BLE001 — keep the suite alive
-            # known case: CVXQP1_M's expander pattern (x_i ~ x_2i ~
-            # x_3i mod n) has no sparse elimination structure; on the
-            # TPU backend its multifrontal program OOMs at COMPILE
-            # with a ~13 GB (levels, fronts, 557, 557) broadcast remat
-            # that the plan-level HBM guard cannot predict (the plan's
-            # own front estimate is ~0.02 GB — an XLA scan/scatter
-            # lowering blowup, round-5 finding).  The member is
-            # CPU-validated (obj to 8 digits, residuals ~1e-12); the
-            # row records the failure honestly instead of killing the
-            # whole artifact run.
+            # known risk: CVXQP1_M's expander pattern (x_i ~ x_2i ~
+            # x_3i mod n) has no sparse elimination structure, and its
+            # multifrontal program has run out of device memory at
+            # COMPILE on a 16 GB device with a ~13 GB (levels, fronts,
+            # 557, 557) broadcast remat that the plan-level memory
+            # guard cannot predict.  The row records such a failure
+            # instead of killing the whole run.
             out.append({
                 "name": name, "n": -1, "m": -1, "status": "ERROR",
                 "error": str(e)[:300], "obj": float("nan"),

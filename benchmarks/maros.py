@@ -1,7 +1,7 @@
 """Named Maros-Meszaros problems (real corpus members, transcribed).
 
-The Maros-Meszaros convex-QP test set is the operative benchmark class
-in BASELINE.md ("Maros-Meszaros + SOCP suite solve time").  The archive
+The Maros-Meszaros convex-QP test set is the standard benchmark class
+for this solver family.  The archive
 itself (QPS files) cannot be vendored here, but several of its members
 are small Hock-Schittkowski problems with fully published definitions
 and exact optimal values; those are transcribed below from the H-S

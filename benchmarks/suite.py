@@ -1,7 +1,7 @@
-"""Benchmark suite: the BASELINE.json config classes as runnable
-problems with per-problem timing, iterations, and accuracy.
+"""Benchmark suite: the solver's problem classes as runnable problems
+with per-problem timing, iterations, and accuracy.
 
-Classes (BASELINE.json "configs"):
+Classes:
   * basic QP (dense P, inequality rows) — the reference golden QP;
   * LP/QP batch: synthetic Maros-Meszaros-style QPs (random sparse
     convex QPs with equalities + box rows; the true MM archive is not
@@ -18,6 +18,7 @@ import argparse
 import json
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -25,8 +26,29 @@ sys.path.insert(0, ".")
 import cuclarabel_tpu as cc  # noqa: E402
 
 
-def _solve(name, P, q, A, b, cones, expect_obj=None, **kw):
-    solver = cc.Solver(P, q, A, b, cones, **kw)
+class SuiteProblem(NamedTuple):
+    """One suite row: problem data, its golden objective (None when the
+    row carries none), Solver keyword settings, and whether it goes
+    through SparseSolver."""
+
+    name: str
+    P: object
+    q: np.ndarray
+    A: object
+    b: np.ndarray
+    cones: list
+    expect_obj: Optional[float] = None
+    kw: dict = {}
+    sparse: bool = False
+
+
+def _solve(p: SuiteProblem):
+    if p.sparse:
+        from cuclarabel_tpu.sparse_solver import SparseSolver
+
+        solver = SparseSolver(p.P, p.q, p.A, p.b, p.cones, **p.kw)
+    else:
+        solver = cc.Solver(p.P, p.q, p.A, p.b, p.cones, **p.kw)
     t0 = time.perf_counter()
     sol = solver.solve()
     cold = time.perf_counter() - t0
@@ -35,10 +57,11 @@ def _solve(name, P, q, A, b, cones, expect_obj=None, **kw):
     warm = time.perf_counter() - t0
     ok = sol.status in (cc.SolverStatus.SOLVED, cc.SolverStatus.ALMOST_SOLVED)
     obj_err = (
-        abs(sol.obj_val - expect_obj) if expect_obj is not None else float("nan")
+        abs(sol.obj_val - p.expect_obj) if p.expect_obj is not None
+        else float("nan")
     )
     return {
-        "name": name,
+        "name": p.name,
         "status": sol.status.name,
         "ok": bool(ok),
         "iters": sol.iterations,
@@ -57,7 +80,7 @@ def qp_golden():
     A = np.vstack([np.array([[1.0, 1.0]]), np.eye(2), -np.eye(2)])
     b = np.array([1.0, 0.7, 0.7, 0.0, 0.0])
     cones = [cc.ZeroConeT(1), cc.NonnegativeConeT(2), cc.NonnegativeConeT(2)]
-    return _solve("qp-golden", P, q, A, b, cones, expect_obj=1.8800000298)
+    return SuiteProblem("qp-golden", P, q, A, b, cones, 1.8800000298)
 
 
 def mm_style_qp(n, meq, seed):
@@ -70,7 +93,7 @@ def mm_style_qp(n, meq, seed):
     A = np.vstack([Aeq, -np.eye(n), np.eye(n)])
     b = np.concatenate([beq, np.zeros(n) + 5.0, np.zeros(n) + 5.0])
     cones = [cc.ZeroConeT(meq), cc.NonnegativeConeT(2 * n)]
-    return _solve(f"mm-qp-n{n}", P, q, A, b, cones)
+    return SuiteProblem(f"mm-qp-n{n}", P, q, A, b, cones)
 
 
 def portfolio_socp(nass, seed):
@@ -95,7 +118,7 @@ def portfolio_socp(nass, seed):
         cc.NonnegativeConeT(nass + 1),
         cc.SecondOrderConeT(nfac + 1),
     ]
-    return _solve(f"socp-portfolio-n{nass}", None, q, A, b, cones)
+    return SuiteProblem(f"socp-portfolio-n{nass}", None, q, A, b, cones)
 
 
 def exp_logistic(nfeat, nobs, seed):
@@ -144,7 +167,7 @@ def exp_logistic(nfeat, nobs, seed):
     q = np.zeros(nv)
     q[nfeat : nfeat + nobs] = 1.0
     P = 1e-4 * np.eye(nv)
-    return _solve(f"exp-logistic-{nobs}x{nfeat}", P, q, A, b, cones)
+    return SuiteProblem(f"exp-logistic-{nobs}x{nfeat}", P, q, A, b, cones)
 
 
 def genpow_family(ncones, seed):
@@ -185,8 +208,8 @@ def genpow_family(ncones, seed):
     expect = -sum(
         a ** a * (1.0 - a) ** (1.0 - a) for a in alphas
     )
-    return _solve(f"genpow-{ncones}cones", None, q, A, b, cones,
-                  expect_obj=expect)
+    return SuiteProblem(f"genpow-{ncones}cones", None, q, A, b, cones,
+                        expect)
 
 
 def sdp_chordal_banded(nv, bw, seed):
@@ -224,9 +247,9 @@ def sdp_chordal_banded(nv, bw, seed):
     A = np.vstack([np.vstack(rows), Apsd])
     b = np.concatenate([np.asarray(bs), np.zeros(sd)])
     cones = [cc.ZeroConeT(meq), cc.PSDTriangleConeT(nv)]
-    return _solve(
+    return SuiteProblem(
         f"sdp-banded-n{nv}", None, q, A, b, cones,
-        chordal_decomposition_enable=True,
+        kw={"chordal_decomposition_enable": True},
     )
 
 
@@ -236,8 +259,6 @@ def sparse_grid_qp(k, seed):
     dense path shouldn't touch."""
     import scipy.sparse as sp
 
-    from cuclarabel_tpu.sparse_solver import SparseSolver
-
     rng = np.random.default_rng(seed)
     n = k * k
     T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (k, k))
@@ -246,34 +267,13 @@ def sparse_grid_qp(k, seed):
     A = sp.vstack([sp.csr_matrix(np.ones((1, n))), -sp.eye(n)]).tocsc()
     b = np.concatenate([[1.0], 1.0 + rng.random(n)])
     cones = [cc.ZeroConeT(1), cc.NonnegativeConeT(n)]
-
-    solver = SparseSolver(P, q, A, b, cones)
-    t0 = time.perf_counter()
-    sol = solver.solve()
-    cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sol = solver.solve()
-    warm = time.perf_counter() - t0
-    ok = sol.status in (cc.SolverStatus.SOLVED, cc.SolverStatus.ALMOST_SOLVED)
-    return {
-        "name": f"sparse_grid_qp_n{n}",
-        "status": sol.status.name,
-        "ok": bool(ok),
-        "iters": sol.iterations,
-        "warm_ms": warm * 1e3,
-        "cold_s": cold,
-        "r_prim": sol.r_prim,
-        "r_dual": sol.r_dual,
-        "obj": sol.obj_val,
-        "obj_err": float("nan"),
-    }
+    return SuiteProblem(f"sparse_grid_qp_n{n}", P, q, A, b, cones,
+                        sparse=True)
 
 
 def banded_sparse_qp(n, bw, seed):
     """Banded-P sparse QP with box rows (another MM structure class)."""
     import scipy.sparse as sp
-
-    from cuclarabel_tpu.sparse_solver import SparseSolver
 
     rng = np.random.default_rng(seed)
     diags = [2.0 + rng.random(n)] + [
@@ -287,26 +287,8 @@ def banded_sparse_qp(n, bw, seed):
     A = sp.vstack([-sp.eye(n), sp.eye(n)]).tocsc()
     b = np.concatenate([np.ones(n), np.ones(n)])  # -1 <= x <= 1
     cones = [cc.NonnegativeConeT(2 * n)]
-    solver = SparseSolver(P, q, A, b, cones)
-    t0 = time.perf_counter()
-    sol = solver.solve()
-    cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sol = solver.solve()
-    warm = time.perf_counter() - t0
-    ok = sol.status in (cc.SolverStatus.SOLVED, cc.SolverStatus.ALMOST_SOLVED)
-    return {
-        "name": f"banded_sparse_qp_n{n}",
-        "status": sol.status.name,
-        "ok": bool(ok),
-        "iters": sol.iterations,
-        "warm_ms": warm * 1e3,
-        "cold_s": cold,
-        "r_prim": sol.r_prim,
-        "r_dual": sol.r_dual,
-        "obj": sol.obj_val,
-        "obj_err": float("nan"),
-    }
+    return SuiteProblem(f"banded_sparse_qp_n{n}", P, q, A, b, cones,
+                        sparse=True)
 
 
 def main():
@@ -315,7 +297,7 @@ def main():
     ap.add_argument(
         "--medium", action="store_true",
         help="include medium grid-QP instances (N_kkt 2k-4k; minutes of "
-             "compile on remote TPU runtimes, cached afterwards)",
+             "compile, cached afterwards)",
     )
     ap.add_argument(
         "--maros", default=None, metavar="DIR",
@@ -347,7 +329,7 @@ def main():
             "r_dual": r["r_dual"], "obj": r["obj"],
             "obj_err": r["obj_err"], "obj_tol": r["obj_tol"],
         })
-    results += [
+    results += [_solve(p) for p in (
         qp_golden(),
         mm_style_qp(50, 10, 1),
         mm_style_qp(200, 40, 2),
@@ -358,7 +340,7 @@ def main():
         sdp_chordal_banded(12, 2, 6),
         sparse_grid_qp(16, 7),
         banded_sparse_qp(300, 3, 8),
-    ]
+    )]
     # genuine mid-size MM members (analytic CVXQP reconstruction,
     # validated against the published optima — benchmarks/cvxqp.py)
     # through the full QPS pipeline
@@ -382,8 +364,8 @@ def main():
         # medium grid-QP instances (AUG2D structural class) through the
         # device multifrontal; N_kkt = 2k^2 + 1
         results += [
-            sparse_grid_qp(32, 11),   # N = 2049
-            sparse_grid_qp(45, 12),   # N = 4051
+            _solve(sparse_grid_qp(32, 11)),   # N = 2049
+            _solve(sparse_grid_qp(45, 12)),   # N = 4051
         ]
 
     hdr = f"{'problem':<22s} {'status':<14s} {'iters':>5s} {'warm ms':>9s} {'rprim':>9s} {'rdual':>9s}"

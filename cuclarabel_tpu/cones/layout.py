@@ -1,4 +1,4 @@
-"""Static cone layout: the TPU-native replacement for the reference's
+"""Static cone layout: the array-based replacement for the reference's
 `CompositeCone` object tree (`src/cones/compositecone_type.jl`).
 
 Design: "arrays, not objects". All numeric cone state (s, z, scaling

@@ -1,6 +1,6 @@
 """Shared numerics for the nonsymmetric (exp/pow/genpow) cone kernels.
 
-TPU-native counterparts of the reference's shared nonsymmetric helpers
+Vectorized counterparts of the reference's shared nonsymmetric helpers
 (`src/cones/coneops_nonsymmetric_common.jl`):
 
   * `newton_raphson_onesided` — batched one-sided NR iteration
@@ -36,8 +36,8 @@ def logsafe(x):
 def solve_3x3_sym(H, b):
     """Batched explicit 3x3 Cholesky solve of SPD systems H x = b
     (parity with cholesky_3x3_explicit_factor!/solve!, used by the
-    reference for the same reason: a generic LU is unavailable/slow —
-    on TPU, XLA's LuDecomposition has no f64 path at all).  Returns
+    reference for the same reason: a generic batched LU is slow on
+    3x3 systems).  Returns
     NaNs for non-SPD inputs; callers mask on finiteness (the reference
     zeroes the correction on factor failure)."""
     a, bb, c = H[:, 0, 0], H[:, 0, 1], H[:, 0, 2]

@@ -1,6 +1,6 @@
 """Vectorized cone operations on flat device arrays.
 
-This is the TPU-native equivalent of the reference's cone-ops trait and
+This is the vectorized equivalent of the reference's cone-ops trait and
 its per-cone loop dispatch (`src/cones/coneops_defaults.jl`,
 `coneops_compositecone.jl`).  Instead of looping over cone objects, each
 cone *type group* runs as one fused kernel:
@@ -377,7 +377,7 @@ SOC_NO_EXPANSION_MAX_SIZE = 4  # cone_types.jl:65-119
 
 def sparse_hs_plan(layout: ConeLayout):
     """Host-side static plan for sparse-KKT Hs assembly
-    (kkt/sparse_tpu.py): coordinates of every Hs entry in the z block
+    (kkt/sparse_kkt.py): coordinates of every Hs entry in the z block
     plus the gather indices needed to compute its value each iteration.
 
     Returns numpy dict:

@@ -4,7 +4,7 @@ Behavioral parity with `src/cones/coneops_psdtrianglecone.jl`.  Cones
 are grouped by side length r (layout.psd_groups: r -> (k, sd) index
 matrix with sd = r(r+1)/2) and each group runs one batched kernel:
 Cholesky / SVD / eigh over (k, r, r) stacks — exactly the shape XLA's
-batched decompositions want on TPU.
+batched decompositions want on an accelerator.
 
 svec storage uses the scaled upper triangle in column-major order with
 sqrt(2) off-diagonal scaling (svec_to_mat!/mat_to_svec!,

@@ -5,7 +5,7 @@ Parity with the reference's `src/info_print.jl` (banner/configuration
 at 2-120, per-iteration status line at 122-160).  Because the IPM loop
 is one fused device program, iteration rows are recorded into a device
 history buffer (ipm/loop.py) and printed post-hoc here rather than
-streamed — the TPU-native equivalent of the reference's streaming
+streamed — the device-side equivalent of the reference's streaming
 @printf lines.
 """
 
@@ -23,7 +23,7 @@ def _count_cones(cones):
 
 def print_banner(settings) -> None:
     print("-------------------------------------------------------------")
-    print(f"           cuclarabel_tpu v{_version()} - TPU-native conic IPM")
+    print(f"           cuclarabel_tpu v{_version()} - conic IPM in JAX")
     print("             (c) 2026 — behavioral parity: Clarabel v0.11")
     print("-------------------------------------------------------------")
 

@@ -86,11 +86,11 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     sym = layout.is_symmetric
     deg1 = layout.degree + 1
     if sparse is not None:
-        # device sparse multifrontal backend (kkt/sparse_tpu.py);
+        # device sparse multifrontal backend (kkt/sparse_kkt.py);
         # problem data stays as nz values end-to-end
-        from ..kkt.sparse_tpu import make_sparse_tpu_kkt
+        from ..kkt.sparse_kkt import make_sparse_kkt
 
-        factorize, kkt_solve, sparse_bufs = make_sparse_tpu_kkt(
+        factorize, kkt_solve, sparse_bufs = make_sparse_kkt(
             n, m, settings, layout, sparse
         )
         _pf_size = sparse_bufs["pf_rows"].shape[0]
@@ -140,10 +140,9 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         else sparse is not None
     )
     kkt_solve_pair = getattr(kkt_solve, "pair", None) if _pair_on else None
-    # the LP init's two solves are one-off and independent — with no
-    # overlap to lose (TPU cores run one kernel at a time), a 2-RHS
-    # launch shares the substitution chain's latency and beats two
-    # sequential launches even where the in-loop pair A/B said no
+    # the LP init's two solves are one-off and independent: where the
+    # backend offers a 2-RHS solve, one launch shares the substitution
+    # chain's latency instead of paying it twice
     _init_pair = getattr(kkt_solve, "pair", None)
 
     # ------------------------------------------------------------------
@@ -156,14 +155,11 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         if sparse is None:
             P, A = dev["P"], dev["A"]
-            # XLA lowers every f64 dot_general on TPU as an 8-pass
-            # emulated-matmul while loop (~2-6 ms each at B=4096; the
-            # round-3 trace showed 84 of them eating ~60% of the loop
-            # body).  Emulated f64 ELEMENTWISE ops are plain double-word
-            # arithmetic, so at the dense path's sizes a broadcast
-            # multiply + reduce is ~10x cheaper at equal accuracy.
-            # Large problems keep the dot form (the 8 bf16 MXU passes
-            # win on O(n^2)-and-up work).
+            # Small dense products as broadcast multiply + reduce
+            # instead of f64 dot_general: this form was chosen for a
+            # device that emulates f64 matmuls.  Whether it still pays
+            # on a device with native f64 is open (ROADMAP A5).  Large
+            # problems keep the dot form.
             if n + m <= 256:
                 Amv = lambda v: (A * v[None, :]).sum(-1)
                 ATmv = lambda v: (A * v[:, None]).sum(0)
@@ -172,8 +168,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 ATmv = lambda v: A.T @ v
             if not has_P:
                 # P is exactly zero for LP/SOCP-form problems: skip the
-                # products entirely (they were full emulated matmuls on
-                # a zero matrix)
+                # products entirely
                 Pmv = lambda v: jnp.zeros_like(v)
             elif n + m <= 256:
                 Pmv = lambda v: (P * v[None, :]).sum(-1)
@@ -201,8 +196,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                     Av * v[spb["a_rows"]], spb["a_cols"], num_segments=n
                 )
 
-        # vector-vector dots also lower to emulated-matmul while loops
-        # at f64; multiply + reduce is the cheap double-word form
+        # vector-vector dots in the same multiply + reduce form
         def vdot(u, v):
             return (u * v).sum(-1)
 
@@ -554,7 +548,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             }
             if st.verbose:
                 # per-iteration progress table, written on device and
-                # printed post-hoc on the host (TPU equivalent of the
+                # printed post-hoc on the host (device-side equivalent of the
                 # reference's streaming print_status line,
                 # info_print.jl:122-160)
                 state0["hist"] = jnp.zeros((st.max_iter + 1, 11))
@@ -924,9 +918,10 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         return post(jax.lax.while_loop(loop_cond, loop_body, make_state0()))
 
     def solve_precise(dev: Dict[str, jnp.ndarray]):
-        # TPU MXU f32 matmuls default to reduced (bf16-pass) internal
-        # precision, which costs ~3 decimal digits in the KKT solves
-        # and cone products; the IPM's 1e-8 termination needs true f32.
+        # f32 matmuls may default to reduced internal precision (TF32
+        # on GPU tensor cores), which costs ~3 decimal digits in the KKT
+        # solves and cone products; the IPM's 1e-8 termination needs
+        # true f32.
         with jax.default_matmul_precision("highest"):
             return solve(dev)
 

@@ -23,7 +23,7 @@ never densified into the Schur complement:
 * The low-rank expansion vectors (u, v per big SOC; q, r, p per
   GenPow) become EXPLICIT saddle unknowns t with the same column
   values and extension-diagonal signs the sparse KKT assembly uses
-  (kkt/sparse_tpu.py; reference Dsigns: SOC (v,u) -> (-1,+1), GenPow
+  (kkt/sparse_kkt.py; reference Dsigns: SOC (v,u) -> (-1,+1), GenPow
   (q,r,p) -> (-1,-1,+1), directldl_kkt_assembly.jl:112-126 semantics).
 
 * Zero-cone rows (Hs = 0: eliminating them through (eps I)^{-1} puts a

@@ -2,12 +2,12 @@
 
 The reference's sparse path is QDLDL through per-column elimination
 (`directldl_qdldl.jl:10-96`) — scalar, scatter-heavy, and hostile to
-TPUs.  The TPU-native design is a **level-scheduled supernodal
+wide accelerators.  This design is a **level-scheduled supernodal
 multifrontal** factorization: the host computes (once per sparsity
 pattern) a fill-reducing ordering, the elimination tree, a supernode
 partition, and a level schedule in which all supernodes of one level
 are independent; the device then factors each level as ONE batched
-dense partial-LDL^T of padded frontal matrices (MXU/VPU work), with
+dense partial-LDL^T of padded frontal matrices, with
 extend-add scatter maps precomputed here as flat index arrays.
 
 Everything in this module is numpy; the output `SymbolicPlan` contains
@@ -114,7 +114,7 @@ def amalgamate(N: int, sn_starts: np.ndarray, cols: List[List[int]],
     in the merged front is <= `max_pad_frac` of its lower triangle, or
     the row-structure mismatch is <= `relax` rows.  This is what turns
     the width-1 chains a dissection ordering produces on separators
-    into wide MXU-friendly panels — without it the level schedule of a
+    into wide matmul-friendly panels — without it the level schedule of a
     100x100 grid KKT was 484 levels deep with wmax=1 everywhere.
 
     cols: per-column strict-lower L patterns (row_patterns output).

@@ -22,7 +22,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ldl.cpp")
-_LIB = os.path.join(_HERE, "libldl_tpu.so")
+_LIB = os.path.join(_HERE, "libldl.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -35,11 +35,16 @@ def _build() -> bool:
     try:
         if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
             return True
+        # build into a private file and rename it into place: another
+        # process that loads the library mid-build then sees either the
+        # old file or the whole new one, never a partial write
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
         cmd = [
             "g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-fopenmp",
-            _SRC, "-o", _LIB,
+            _SRC, "-o", tmp,
         ]
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _LIB)
         return True
     except Exception:
         return False
@@ -153,9 +158,8 @@ class LDLFactor:
         self.Dinv = np.zeros(self.n)
         self._head = np.zeros(self.n, dtype=np.int64)
 
-        # thread count: 0 = auto.  Measured (round 4,
-        # benchmarks/ab_results/native_threads.json): the level-parallel
-        # sweep shows NO speedup on grid-KKT classes up to N=20001 on a
+        # thread count: 0 = auto.  Measured on a 4-core host: the
+        # level-parallel sweep shows NO speedup on grid-KKT classes up to N=20001 on a
         # 4-core host — the left-looking column gathers are memory-bound
         # and the per-level barrier eats what little remains — so auto
         # stays sequential until the kernel is supernodal/blocked.  An

@@ -1,10 +1,9 @@
 """Batched sparse scenario solving: many sparse conic programs that
 share ONE sparsity pattern solve as a single vmapped device program.
 
-This is the TPU-native answer to the multifrontal's single-problem
-latency: the level-scheduled factorization is a chain of ~10^3 small
-sequential steps, so one N=3201 solve is latency-bound (~1 s on a v5e
-chip) — but every index map, level schedule and scatter plan depends
+This is the answer to the multifrontal's single-problem latency: the
+level-scheduled factorization is a chain of ~10^3 small sequential
+steps, so one N=3201 solve is latency-bound — but every index map, level schedule and scatter plan depends
 only on the PATTERN, so B scenario instances (different values of P/A
 over the same nonzeros, different q/b) batch across the whole numeric
 phase with `jax.vmap` at near-zero marginal latency.  Scenario sweeps,
@@ -30,7 +29,7 @@ from ..cones.api import cones_collapsed
 from ..cones.layout import build_layout
 from ..infinity import get_infinity
 from ..ipm.loop import make_solve_fn
-from ..kkt.sparse_tpu import SparseProblem, make_sparse_tpu_kkt
+from ..kkt.sparse_kkt import SparseProblem, make_sparse_kkt
 from ..settings import Settings
 from ..solver import DefaultSolution
 from ..statuscodes import SolverStatus
@@ -197,7 +196,7 @@ class BatchSparseSolver:
 
         base = make_solve_fn(self.layout, settings, n, m, has_P,
                              jnp.float64, raw=True, sparse=self._sp)
-        _, _, host_bufs = make_sparse_tpu_kkt(
+        _, _, host_bufs = make_sparse_kkt(
             n, m, settings, self.layout, self._sp
         )
         host_bufs = dict(host_bufs)
@@ -260,7 +259,7 @@ class BatchSparseSolver:
         )
         # index maps stay host-side numpy until dispatch: passing them
         # as call ARGUMENTS (not jitted-closure constants) keeps them
-        # out of the program text — baked maps OOM the remote compiler
+        # out of the program text — baked maps OOM the compiler
         self._spbufs = {k: jnp.asarray(v) for k, v in host_bufs.items()}
         self.raw = None
 

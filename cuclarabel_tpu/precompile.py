@@ -2,13 +2,13 @@
 
 The reference solves a small problem over every cone type at package
 load so first user solves hit warm code paths (`src/precompile.jl:50-57`
-builds the cone list; `src/Clarabel.jl:93-102` wires it).  The TPU
+builds the cone list; `src/Clarabel.jl:93-102` wires it).  The JAX
 analog of "precompiled method instances" is the persistent XLA
 compilation cache (installed by the package `__init__`): every
 (layout, settings, shapes) signature that has been traced + compiled
 once on a machine loads from the cache in subsequent processes instead
 of paying the multi-second (dense) to multi-minute (large sparse)
-remote compile.
+compile.
 
 Two ways to use it:
 
@@ -20,13 +20,13 @@ Two ways to use it:
     solver object (anything with `.solve()`: Solver, SparseSolver,
     BatchSolver, ...) or a zero-argument callable returning one.
 
-Shipping caches: the cache directory (default
-`~/.cache/cuclarabel_tpu/jax_cache`, override with
-JAX_COMPILATION_CACHE_DIR) is a plain directory of compiled-executable
-files keyed by (program fingerprint, compiler version, platform).  It
-can be copied between machines that run the same accelerator platform
-and jaxlib version; foreign entries are ignored (fingerprint miss), so
-shipping a superset is safe.  NB: the cache stores COMPILED programs —
+Shipping caches: the cache directory (JAX_COMPILATION_CACHE_DIR when
+set, else `.jax_cache/host-<fingerprint>` at the root of the checkout)
+is a plain directory of compiled-executable files keyed by (program
+fingerprint, compiler version, platform).  It can be copied between
+machines that run the same accelerator platform, jaxlib version and
+host CPU; foreign entries are ignored (fingerprint miss), so shipping a
+superset is safe.  NB: the cache stores COMPILED programs —
 Python tracing still runs per process, so first-solve latency drops to
 trace time + cache load, not to zero.
 """

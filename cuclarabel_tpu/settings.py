@@ -1,8 +1,8 @@
 """User-facing solver settings.
 
 Parity with the reference `Settings{T}` kwdef struct
-(`src/settings.jl:70-148`), plus TPU-specific knobs (factorization
-precision and KKT backend selection).
+(`src/settings.jl:70-148`), plus device knobs (factorization precision,
+KKT backend selection, batching and host routing).
 
 The dataclass is frozen and hashable so that a `Settings` instance can
 key the jit cache: the jitted solve function is specialized on the
@@ -65,11 +65,9 @@ class Settings:
     # point's outlier complementarity products pushed back into
     # [beta_min, beta_max]*sigma*mu, and is accepted only if the step
     # length improves.  Symmetric-cone problems only (ignored when
-    # exp/pow/genpow cones are present).  Measured on the v5e
-    # portfolio-SOCP bench (interleaved warm A/B, round 2): K=1 cuts
-    # batch-max iterations 12->10 but the extra back-solves roughly
-    # cancel the saving — ~+2% at B=256 and ~-5% at B=4096; K=2 loses
-    # at both sizes.  Default therefore 0; enable only for problem
+    # exp/pow/genpow cones are present).  On the portfolio-SOCP batch
+    # K=1 cuts batch-max iterations 12->10, but each corrector adds a
+    # back-solve per iteration.  Default 0; enable for problem
     # families whose iteration counts are corrector-limited.
     centrality_correctors: int = 0
     corrector_beta_min: float = 0.1
@@ -84,32 +82,25 @@ class Settings:
     # gathered into a narrower program (next power of two wide) and
     # resumed from their exact mid-loop state.  0.0 disables.
     # -1.0 (default) = auto: on (quorum 0.9) when the batch is at least
-    # `batch_compaction_min_batch` problems, off below — the measured
-    # crossover on the v5e portfolio bench (round-2 interleaved A/B:
-    # +23% at B=4096, -13% at B=256; the two extra dispatches and the
-    # host gather only amortize at large B).
+    # `batch_compaction_min_batch` problems, off below (the two extra
+    # dispatches and the host gather only amortize at large B).
     batch_compaction: float = -1.0
     batch_compaction_min_batch: int = 1024
 
-    # Single-solve host routing: a lone small solve on a TPU-backend
-    # process pays per-dispatch latency plus lane-1 kernel launches on
-    # a 128-lane machine, while the same problem solves warm in ~5 ms
-    # on the host CPU backend (measured, N=83 portfolio).  "auto"
-    # (default) routes single `Solver` solves with KKT dim <= 128 to
-    # the in-process CPU backend when the default backend is a TPU and
-    # kkt_solve_method is "auto" (an explicit backend choice is
-    # respected); "on" forces host routing for any N; "off" disables.
-    # Batch/sharded/sparse solvers ignore this (they exist to use the
-    # chip).  The reference solves this class on CPU natively — this
-    # is the parity policy for latency-critical small problems (MPC).
+    # Single-solve host routing: a lone small solve on an accelerator
+    # pays a kernel launch per operation of every IPM iteration, while
+    # the reference solves this class on the CPU natively.  "on" runs
+    # single `Solver` solves on the in-process CPU backend whenever the
+    # default backend is an accelerator; "off" never routes; "auto"
+    # (default) currently routes nothing, pending a measurement of lone
+    # solves on the accelerator against the CPU path.  Batch/sharded/
+    # sparse solvers ignore this (they exist to use the device).
     host_solve: str = "auto"
 
-    # BatchSolver chunking for very wide batches: the measured
-    # throughput curve peaks near B=4096 on v5e (10.2k problems/s
-    # device-side) and a monolithic B=8192 program REGRESSES to 9.1k
-    # (round-4 batch_scaling artifact) — wider programs enlarge the
-    # straggler tail the fused loop runs to, and live HBM grows with
-    # B.  With chunking, batches wider than the chunk split into
+    # BatchSolver chunking for very wide batches: wider programs
+    # enlarge the straggler tail the fused loop runs to, and live
+    # device memory grows with B.  With chunking, batches wider than
+    # the chunk split into
     # chunk-wide programs that are ALL enqueued before one fence
     # (XLA pipelines them back-to-back), so throughput stays at the
     # sweet spot and peak live intermediates are bounded by the chunk
@@ -119,19 +110,17 @@ class Settings:
 
     # Multi-RHS ("pair") KKT solves: fuse the constant-RHS (-q, b) and
     # affine systems — which share the factorization — into one kernel
-    # launch.  None = auto: OFF on the dense backends (v5e portfolio
-    # A/B, benchmarks/ab_results/ab_pair.json — no-pair wins ~3-7%;
-    # the 2-RHS substitution chain is not free at batch widths that
-    # already fill the VPU lanes, and the fused launch serializes work
-    # XLA otherwise overlaps) and ON for the device sparse multifrontal
-    # (its back-solve is a latency-bound level walk whose cost is paid
-    # ONCE for both RHS columns — the pair wiring exists there for
-    # exactly that reason).  True/False forces either way.
+    # launch.  None = auto: OFF on the dense backends (the fused launch
+    # serializes work XLA otherwise overlaps) and ON for the device
+    # sparse multifrontal (its back-solve is a latency-bound level walk
+    # whose cost is paid ONCE for both RHS columns — the pair wiring
+    # exists there for exactly that reason).  True/False forces either
+    # way.
     kkt_pair_solve: Optional[bool] = None
 
     # linear solver selection (mirrors the backend registry of
     # src/kktsolvers/direct-ldl/directldl_defaults.jl):
-    # "dense" = dense factorization/inversion on device (TPU MXU path);
+    # "dense" = dense factorization/inversion on device;
     # "qdldl" = native C++ sparse LDL^T host-side (CPU path);
     # "arrow" = block-arrow Schur complement partitioned over a device
     #           mesh (tensor-parallel; requires ShardedSolver);
@@ -139,15 +128,15 @@ class Settings:
     direct_solve_method: str = "auto"
     max_threads: int = 0
 
-    # factorization precision: "auto" picks float32+IR on TPU backends
-    # and float64 elsewhere; or force "float32"/"float64".
+    # factorization precision: "auto" = float64 (reference accuracy);
+    # "float32" factors with f64 iterative refinement.
     kkt_factor_precision: str = "auto"
 
     # dense KKT solve algorithm: "lu" (pivoted, XLA), "inverse"
     # (pivot-free explicit inverse of the regularized quasidefinite K;
-    # every solve becomes one MXU matmul — much faster on TPU, same
-    # final accuracy via f64 iterative refinement), or "auto"
-    # (inverse on TPU, lu elsewhere).
+    # every solve becomes one matrix-vector product, same final
+    # accuracy via f64 iterative refinement), "qr" (Householder), or
+    # "auto" (= "lu").
     kkt_solve_method: str = "auto"
 
     # static regularization (src/settings.jl:117-119)
@@ -182,7 +171,7 @@ class Settings:
     # direct_kkt_solver (src/settings.jl:113) must stay True — the
     # reference itself supports no indirect solver either.
     # pardiso_iparm/pardiso_verbose (src/settings.jl:145-146) configure
-    # the Pardiso backend, which has no TPU counterpart; a non-default
+    # the Pardiso backend, which has no counterpart here; a non-default
     # value warns rather than silently disappearing.  Stored as a tuple
     # (not MVector/list) to keep the dataclass hashable for jit keying.
     direct_kkt_solver: bool = True
@@ -247,7 +236,7 @@ class Settings:
             warnings.warn(
                 "pardiso_iparm/pardiso_verbose are accepted for reference "
                 "compatibility but have no effect: there is no Pardiso "
-                "backend on TPU",
+                "backend",
                 stacklevel=2,
             )
         if self.max_threads < 0:
@@ -265,10 +254,12 @@ class Settings:
             raise ValueError("kkt_factor_precision must be auto|float32|float64")
         if self.direct_solve_method not in ("auto", "dense", "qdldl", "arrow"):
             raise ValueError(f"unknown direct_solve_method {self.direct_solve_method}")
-        if self.kkt_solve_method not in ("auto", "lu", "inverse", "pallas",
-                                         "qr"):
+        if self.kkt_solve_method == "pallas":
             raise ValueError(
-                "kkt_solve_method must be auto|lu|inverse|pallas|qr")
+                'kkt_solve_method="pallas" (the double-float Pallas LDL '
+                'engine) was removed; use "auto" or "lu"')
+        if self.kkt_solve_method not in ("auto", "lu", "inverse", "qr"):
+            raise ValueError("kkt_solve_method must be auto|lu|inverse|qr")
         if self.centrality_correctors < 0:
             raise ValueError("centrality_correctors must be nonnegative")
         if self.batch_compaction != -1.0 and not (

@@ -27,7 +27,7 @@ from .cones.api import cones_collapsed
 from .cones.layout import build_layout
 from .infinity import get_infinity
 from .ipm.loop import make_solve_fn
-from .kkt.sparse_tpu import SparseProblem
+from .kkt.sparse_kkt import SparseProblem
 from .settings import Settings
 from .solver import DefaultSolution
 from .statuscodes import SolverStatus
@@ -220,7 +220,7 @@ class SparseSolver:
             sparse=self._sp, stream=settings.verbose,
         )
         # index maps as runtime inputs (not baked constants)
-        from .kkt.sparse_tpu import make_sparse_tpu_kkt as _mk
+        from .kkt.sparse_kkt import make_sparse_kkt as _mk
 
         _, _, host_bufs = _mk(n, m, settings, self.layout, self._sp)
         self._dev["spbufs"] = {
@@ -384,8 +384,8 @@ class SparseSolver:
         self.info["solve_time"] = solve_time
         # linear-solver block (reference DefaultInfo linear_solver,
         # types.jl:209-251): the multifrontal backend attaches its true
-        # symbolic factor stats to the factorize fn (sparse_tpu.py)
-        from .kkt.sparse_tpu import make_sparse_tpu_kkt as _mk2
+        # symbolic factor stats to the factorize fn (sparse_kkt.py)
+        from .kkt.sparse_kkt import make_sparse_kkt as _mk2
 
         _fac, _, _ = _mk2(
             self.n, self.m, self.settings, self.layout, self._sp

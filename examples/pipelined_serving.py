@@ -1,16 +1,13 @@
 """Continuous-load solving: pipeline batched dispatches, fence once.
 
 A serving process that round-trips to the accelerator between
-independent solves pays the full dispatch+completion latency per batch
-(25-60 ms through remote runtimes — more than the solve itself at small
-widths).  JAX dispatch is asynchronous: enqueue every pending batch,
-then synchronize once — the device executes back-to-back and
-throughput approaches the device-busy bound.  Measured on a v5e
-(docs/performance.md): 4.3k problems/s fence-per-solve vs 7.7k/s
-pipelined at B=256.
+independent solves pays the full dispatch+completion latency per batch.
+JAX dispatch is asynchronous: enqueue every pending batch, then
+synchronize once — the device executes back-to-back and throughput
+approaches the device-busy bound.
 
-Run: python examples/pipelined_serving.py  (CPU-safe; uses the TPU
-when the default backend is one)
+Run: python examples/pipelined_serving.py  (runs on the default JAX
+backend: the GPU when there is one)
 """
 
 import sys

@@ -1,16 +1,15 @@
 """Serving-style batched solving: wide scenario batches with auto
 chunking, warm re-solves, and the latency path for lone solves.
 
-Run (CPU):   python examples/serving_batch.py
-Run (TPU):   same command in the TPU environment — the batch rides the
-chip; lone small solves auto-route to the host CPU backend
-(Settings.host_solve) so an MPC-style control loop is not paying the
-accelerator's per-dispatch latency for one 80-dim problem.
+Run:   python examples/serving_batch.py  (default JAX backend: the
+GPU when there is one).  With host_solve="on", lone solves run on the
+in-process CPU backend instead of paying the accelerator's
+per-dispatch latency for one 80-dim problem.
 
 Demonstrates:
   * BatchSolver over B scenarios of one portfolio structure
-    (batch_chunk_size auto keeps throughput at the single-chip sweet
-    spot for B > 4096 and bounds live memory by the chunk width);
+    (batch_chunk_size auto splits B > 4096 into chunk-wide programs
+    and bounds live memory by the chunk width);
   * update_data + warm_start re-solves for drifted data (the compiled
     program is reused; warm starts cut iterations ~3x at 1% drift);
   * a lone Solver solve for the latency-critical path.
@@ -74,7 +73,7 @@ def main():
     print(f"warm re-solve: {dt2*1e3:.0f} ms, mean iterations "
           f"{it_cold:.1f} -> {it_warm:.1f}")
 
-    # --- the latency path: one problem, host-routed on TPU processes
+    # --- the latency path: one problem
     one = cc.Solver(None, qs[0], A, bs[0], cones, presolve_enable=False)
     sol = one.solve()
     ts = []

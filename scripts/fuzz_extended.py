@@ -293,8 +293,8 @@ def run_one(cls, seed, path):
 
 
 def run_batch(cls, seed, B=5):
-    """The same generator families through BatchSolver (VERDICT r4 #4:
-    the batch path's riskiest machinery — per-problem strategy ladder,
+    """The same generator families through BatchSolver (the batch
+    path's riskiest machinery — per-problem strategy ladder,
     backtracking line searches, NR inner loops diverging per lane under
     vmap — exercised for EVERY cone family, asserted against
     single-problem solves).  B=5 lanes of one structure with perturbed

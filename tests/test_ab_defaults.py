@@ -1,7 +1,6 @@
-"""Shipped defaults must match the committed A/B verdicts
-(benchmarks/ab_results/): pair solves off, batch compaction auto with a
-large-batch threshold, correctors off — plus the Settings hashability
-contract for every construction path."""
+"""Shipped defaults: pair solves auto (off on dense backends), batch
+compaction auto with a large-batch threshold, correctors off — plus
+the Settings hashability contract for every construction path."""
 
 import numpy as np
 import pytest
@@ -11,7 +10,7 @@ from cuclarabel_tpu.parallel.batch import BatchSolver
 
 
 def test_pair_default_auto():
-    # None = auto: resolves to off on dense backends (ab_pair.json) and
+    # None = auto: resolves to off on dense backends and
     # on for the sparse multifrontal (latency-bound level walk shared
     # across both RHS columns)
     s = cc.Settings()
@@ -120,10 +119,9 @@ def test_ir_count_accumulates():
     ir_last = int(info.get("ir_last", 0))
     assert ir_count >= max(ir_last, 1)
     assert ir_count > ir_last  # accumulation across > 1 iterations
-    # linear_solver nnzL now reflects the resolved backend
+    # linear_solver reports the resolved backend and its full N x N
+    # factor
     ls = info["linear_solver"]
     N = ls["kkt_dim"]
-    if ls["method"] == "pallas":
-        assert ls["nnzL"] == N * (N + 1) // 2
-    else:
-        assert ls["nnzL"] == N * N
+    assert ls["method"] == "lu"
+    assert ls["nnzL"] == N * N

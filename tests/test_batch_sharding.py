@@ -289,7 +289,7 @@ def test_batch_exp_lane_uniformity_xla_cpu_canary():
     harder data lane 2 alone hits INSUFFICIENT_PROGRESS).  The effect
     follows the LANE, not the problem; disabling XLA optimizations
     (JAX_DISABLE_MOST_OPTIMIZATIONS=1) removes it; B=2,3,5..16 are
-    uniform; pow/LP batches are uniform; the TPU backend is clean.
+    uniform; pow/LP batches are uniform.
 
     This test asserts the CURRENT situation so a backend change in
     either direction is noticed: B=5 identical lanes must be uniform
@@ -315,8 +315,8 @@ def test_batch_exp_lane_uniformity_xla_cpu_canary():
     if len(set(it4)) != 1:
         warnings.warn(
             "XLA:CPU B=4 lane nonuniformity still present "
-            f"(iterations {it4}) — known backend miscompile, "
-            "TPU unaffected", stacklevel=1,
+            f"(iterations {it4}) — known backend miscompile",
+            stacklevel=1,
         )
 
 
@@ -325,8 +325,8 @@ def test_batch_dp_has_no_data_collectives():
     batched program moves NO problem data between devices.  The only
     permitted collective is the scalar loop-termination consensus (the
     vmapped while_loop's OR-reduce over 'all problems done').  This is
-    what makes batch scaling to more chips/hosts near-linear (BASELINE
-    scaling-efficiency target — no communication to lose)."""
+    what makes batch scaling to more devices near-linear (no
+    communication to lose)."""
     import re
 
     import jax

@@ -3,10 +3,9 @@ solved end-to-end with float32 KKT factors.
 
 The reference runs every OptTest in Float64 AND BigFloat
 (test/run_solver_tests.jl:4) to prove dtype genericity.  The
-TPU-relevant precision axis points the other way — REDUCED precision:
+device-relevant precision axis points the other way — REDUCED precision:
 `kkt_factor_precision="float32"` factors in f32 and recovers accuracy
-through f64 iterative refinement (the ~5x TPU throughput knob,
-settings.py).  This tier asserts the golden optima are still reached
+through f64 iterative refinement (the throughput knob, settings.py).  This tier asserts the golden optima are still reached
 under relaxed tolerances, documenting what f32 factors achieve on each
 cone family."""
 

@@ -147,7 +147,7 @@ def test_socp_lasso():
 @pytest.mark.parametrize("precision", ["float32", "float64"])
 def test_factor_precision_sweep(precision):
     """The QP/SOCP fixtures must solve to full accuracy under both the
-    f32-factor + f64-refinement path (the TPU configuration) and the
+    f32-factor + f64-refinement path (kkt_factor_precision) and the
     all-f64 path."""
     P = np.array([[4.0, 1.0], [1.0, 2.0]])
     q = np.array([1.0, 1.0])

@@ -3,7 +3,7 @@ member, parser feature coverage (RANGES, bound quirks, OBJSENSE,
 QMATRIX), and a large MM-style grid member through SparseSolver.
 
 The reference has no QPS reader (problems arrive as Julia structures);
-this is the BASELINE.md "Maros-Meszaros suite" entry point."""
+this is the Maros-Meszaros suite's entry point."""
 
 import sys
 

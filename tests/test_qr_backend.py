@@ -1,10 +1,10 @@
-"""QR dense-KKT backend (the f64 fallback past the Pallas cap on TPU).
+"""QR dense-KKT backend (kkt_solve_method="qr").
 
-Regression for the round-4 on-chip finding: the pivot-free block-Schur
+Regression for an on-device finding: the pivot-free block-Schur
 inverse loses ~8 digits on dense ill-conditioned Hs blocks (late-IPM
 PSD cones) — a nearest-PSD projection ended INSUFFICIENT_PROGRESS at
 r_prim ~ 4e-4 through `inverse` (f64) while `lu` solved to 1e-14.
-Householder QR is pivoting-free (TPU-lowerable) AND backward stable."""
+Householder QR is pivoting-free AND backward stable."""
 
 import numpy as np
 import pytest
@@ -83,14 +83,16 @@ def test_qr_random_sweep():
         assert rp < 1e-7 * scale and rd < 1e-7 * scale, (t, rp, rd)
 
 
-def test_auto_resolution_f64_large_on_tpu_is_qr(monkeypatch):
+def test_auto_resolution_on_gpu_is_lu(monkeypatch):
+    # qr is selectable but never chosen by "auto": on a GPU (native
+    # f64 LU) auto is pivoted LU at every precision
     from cuclarabel_tpu.kkt.dense import resolve_kkt_method
     from cuclarabel_tpu.settings import Settings
 
     import jax
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert resolve_kkt_method(Settings(), 600) == "qr"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert resolve_kkt_method(Settings()) == "lu"
     assert resolve_kkt_method(
-        Settings(kkt_factor_precision="float32"), 600) == "inverse"
-    assert resolve_kkt_method(Settings(), 100) == "pallas"
+        Settings(kkt_factor_precision="float32")) == "lu"
+    assert resolve_kkt_method(Settings(kkt_solve_method="qr")) == "qr"

@@ -25,7 +25,7 @@ def _grid_family(k=8, B=5, seed=0, vary_values=False):
     cones = [api.ZeroConeT(1), api.NonnegativeConeT(n)]
     P_vals = A_vals = None
     if vary_values:
-        from cuclarabel_tpu.kkt.sparse_tpu import SparseProblem
+        from cuclarabel_tpu.kkt.sparse_kkt import SparseProblem
 
         spp = SparseProblem.from_scipy(P, A)
         Pv0 = spp.P_vals(P)
@@ -58,7 +58,7 @@ def test_batch_varying_matrix_values():
     batch = BatchSparseSolver(P, qs, A, bs, cones,
                               P_vals=P_vals, A_vals=A_vals)
     sols = batch.solve()
-    from cuclarabel_tpu.kkt.sparse_tpu import SparseProblem
+    from cuclarabel_tpu.kkt.sparse_kkt import SparseProblem
 
     for i, s in enumerate(sols):
         assert s.status.name == "SOLVED"

@@ -279,8 +279,8 @@ def test_sparse_presolve_roundtrip():
 
 
 def test_sparse_f32_factor_precision():
-    """kkt_factor_precision='float32' factors the fronts in f32 (native
-    MXU path on TPU) with f64 refinement against the f64 K; solutions
+    """kkt_factor_precision='float32' factors the fronts in f32 with f64
+    refinement against the f64 K; solutions
     still hit the default 1e-8 tolerances on well-conditioned data."""
     P, q, A, b, cones = _grid_qp(5)
     s32 = SparseSolver(P, q, A, b, cones,
